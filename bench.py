@@ -1,8 +1,8 @@
 """Benchmark: time-to-converged-eigenpair, canonical tokamak case (n=1024).
 
 Runs the full Newton-trace-secant eigensolve (init + iterations to the
-reference convergence criterion + nullspace extraction) on the available
-accelerator (TPU f32/c64; CPU f64 fallback) and reports wall-clock excluding
+reference convergence criterion + nullspace extraction) on the default
+device (GPU f32/c64; CPU f64) and reports wall-clock excluding
 one-time compilation (the persistent compile cache under .jax_cache makes
 compiles one-time per machine).
 
@@ -21,22 +21,22 @@ import time
 REPO = pathlib.Path(__file__).parent
 sys.path.insert(0, str(REPO))
 
-# Reference C++ wall-clock for the same solve on this host (2-core CPU):
-# measured via .refbuild/emme_ref on golden_tok1024 (eigen method, 5 Newton
-# steps + SVD): All=674.72s (initial 175.2, Iteration 485.1, SVD 12.0).
+# Reference C++ wall-clock for the same solve on a 2-core CPU host, measured
+# via .refbuild/emme_ref on golden_tok1024 (eigen method, 5 Newton steps +
+# SVD): All=674.72s (initial 175.2, Iteration 485.1, SVD 12.0).
 REF_SECONDS = 674.7
 GOLDEN = complex(-0.83238057408053912, 0.2565467084687576)
 
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from emme_tpu import accel
+    accel.enable_compile_cache()
     import jax.numpy as jnp
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    if not on_tpu:
+    on_card = accel.current() == "gpu"
+    dtype = jnp.float32 if on_card else jnp.float64
+    if not on_card:
         jax.config.update("jax_enable_x64", True)
 
     from emme_tpu import from_config
@@ -48,7 +48,7 @@ def main():
     cfg["npoints"] = 1024
     p = from_config(cfg, dtype=dtype)
 
-    chunk = 16384   # dispatch-overhead plateau measured in BENCH_ASSEMBLY.md
+    chunk = 16384
     # Warm-up solves trigger all compilation (cached persistently) for BOTH
     # timed paths (the host64 variant compiles its own traced loop).
     print("warm-up (compilation)...", file=sys.stderr, flush=True)
@@ -64,8 +64,7 @@ def main():
     rel_err = abs(om - GOLDEN) / abs(GOLDEN)
     print(f"eigenvalue {om} steps {nsteps} rel_err_vs_reference {rel_err:.3g}",
           file=sys.stderr, flush=True)
-    # pure-f32 fused+tiered device loop converges to ~1.4e-6 of the f64
-    # golden since the exact-node-synthesis fix (STEL_VALIDATION.md round 3)
+    # the f32 fused+tiered device loop converges well inside the f32 bar
     assert rel_err < 1e-4, f"accuracy regression: {rel_err}"
 
     # secondary: the reference's own 1e-6 criterion via the hybrid polish
@@ -83,8 +82,8 @@ def main():
     stel_seconds = None
     stel_err = None
     try:
-        if not on_tpu:
-            raise RuntimeError("stel1024 secondary is TPU-only (a dense f64 "
+        if not on_card:
+            raise RuntimeError("stel1024 secondary is GPU-only (a dense f64 "
                                "EM solve would take hours on this CPU)")
         with open(REPO / "tests" / "goldens" / "inputs"
                   / "stellarator.json") as f:
@@ -93,10 +92,10 @@ def main():
         sp = from_config(scfg, dtype=dtype)
         STEL_GOLDEN = complex(-1.65655594094, 2.49032058254)
         eigen.solve(sp, -1.656 + 2.490j, tol=1e-6, chunk=chunk,
-                    host64=on_tpu)  # warm
+                    host64=on_card)  # warm
         t0 = time.time()
         som, _sv, _sn, _ = eigen.solve(sp, -1.656 + 2.490j, tol=1e-6,
-                                       chunk=chunk, host64=on_tpu)
+                                       chunk=chunk, host64=on_card)
         stel_seconds = time.time() - t0
         stel_err = abs(som - STEL_GOLDEN) / abs(STEL_GOLDEN)
         print(f"stel1024: {som} in {stel_seconds:.2f}s rel_err "
@@ -115,11 +114,11 @@ def main():
         print(f"pic bench skipped: {e}", file=sys.stderr, flush=True)
 
     # secondary: largest never-dense banded eigensolve (n=8192, 30 M nnz;
-    # the BASELINE scaling axis -- see BENCH_SPARSE.md)
+    # the BASELINE scaling axis)
     sp8192_seconds = None
     try:
-        if not on_tpu:
-            raise RuntimeError("tok8192 sparse secondary is TPU-only")
+        if not on_card:
+            raise RuntimeError("tok8192 sparse secondary is GPU-only")
         from emme_tpu.solvers import sparse_eigen
         cfg8 = dict(cfg, npoints=8192)
         p8 = from_config(cfg8, dtype=dtype)
@@ -131,8 +130,9 @@ def main():
         sp8192_seconds = time.time() - t0
         print(f"tok8192 sparse: {om8} in {sp8192_seconds:.2f}s",
               file=sys.stderr, flush=True)
-        # self-consistency vs the recorded scaling value (BENCH_SPARSE.md)
-        ref8 = complex(-0.841785728931427, 0.25214308500289917)
+        # against the f64 solve of the same case (tiered panel meshes,
+        # band_deta 10) on an H100: chip_smoke.py phase 4
+        ref8 = complex(-0.8417840951279627, 0.25225266594890466)
         assert abs(om8 - ref8) / abs(ref8) < 1e-4
     except Exception as e:
         print(f"tok8192 bench skipped: {e}", file=sys.stderr, flush=True)

@@ -3,15 +3,16 @@ deposition (the "PIC-coupled variant" row of BASELINE.md).
 
 Each coupled step runs, inside one fused jit:
   1. one BDIA SpMV of the assembled kernel-integral operator applied to the
-     current field (the eigen-path operator apply, MXU einsums), and
+     current field (the eigen-path operator apply, batched einsums), and
   2. one delta-f PIC RK3 step -- marker push (gather) + CIC deposition
      (one-hot matmul / segment-sum) + quasi-neutrality solve -- whose field
      is REPLACED by the normalized SpMV output, coupling the two workloads'
      dataflow (the PIC gather reads what the SpMV wrote).
 
-This is the interleaving stress the BASELINE row asks for: MXU SpMV and
-deposition matmuls alternating with VPU marker arithmetic in one program,
-markers resident in HBM.  Prints one JSON line with coupled steps/s.
+This is the interleaving stress the BASELINE row asks for: the SpMV and
+the deposition contractions alternating with elementwise marker arithmetic
+in one program, markers resident in device memory.  Prints one JSON line
+with coupled steps/s.
 """
 
 import json
@@ -28,13 +29,13 @@ N_STEPS = 60
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from emme_tpu import accel
+    accel.enable_compile_cache()
     import jax.numpy as jnp
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    if not on_tpu:
+    on_card = accel.current() == "gpu"
+    dtype = jnp.float32 if on_card else jnp.float64
+    if not on_card:
         jax.config.update("jax_enable_x64", True)
 
     from emme_tpu import from_config
@@ -63,7 +64,7 @@ def main():
         p, grid, cband, (re + 1j * im).astype(cdtype), h, block,
         tiers=tiers))(jnp.asarray(-0.832, dtype), jnp.asarray(0.257, dtype))
 
-    # eager complex intermediates are unimplemented on TPU: jit the setup
+    # jit the setup (one compiled program instead of eager dispatches)
     qn = jax.jit(lambda: pic.quasi_neutrality_coef(p, dtype=dtype))()
     s0 = jax.jit(lambda k: pic.init_state(p, mpc, k, dtype=dtype))(
         jax.random.PRNGKey(0))
@@ -94,50 +95,6 @@ def main():
     assert np.isfinite(stats).all()
     print(json.dumps({
         "metric": "coupled_spmv_plus_pic_step",
-        "n": p.npoints, "markers": p.npoints * mpc,
-        "nnz": int(M.nnz), "steps": N_STEPS,
-        "value": round(wall / N_STEPS * 1e3, 3), "unit": "ms/step",
-        "steps_per_s": round(N_STEPS / wall, 2),
-    }), flush=True)
-
-    # ---- variant: the marker pass on the fused Pallas stage kernels ----
-    # (same dataflow: the PIC gather reads what the SpMV wrote; the RK3
-    # step is three pallas_calls on (8, m/8)-viewed markers with the field
-    # riding (G, 128) planes)
-    if not on_tpu:
-        return
-    from emme_tpu.solvers import pallas_pic
-
-    G = p.npoints // 128
-    fs = pallas_pic._FusedStep(p, p.npoints * mpc, 0.25, interpret=False)
-    arrs0 = jax.jit(lambda s: pallas_pic.state_to_arrs(s))(s0)
-    qn2d = qn.reshape(G, 128).astype(jnp.float32)
-    f0 = (jnp.real(s0.field).reshape(G, 128).astype(jnp.float32),
-          jnp.imag(s0.field).reshape(G, 128).astype(jnp.float32))
-
-    @partial(jax.jit, static_argnums=3)
-    def coupled_fused(M, arrs, field, n_steps):
-        def body(carry, _):
-            arrs, (fr2, fi2) = carry
-            fr, fi = bdia_matvec(M, fr2.reshape(-1), fi2.reshape(-1))
-            nrm = jnp.sqrt(jnp.sum(fr * fr + fi * fi)) + 1e-30
-            field = ((fr / nrm).reshape(G, 128).astype(jnp.float32),
-                     (fi / nrm).reshape(G, 128).astype(jnp.float32))
-            arrs, field = fs.step(p, arrs, field, qn2d, 0.25)
-            st = jnp.stack([field[0].mean(), field[1].mean(), jnp.sqrt(
-                (field[0] ** 2 + field[1] ** 2).mean())])
-            return (arrs, field), st
-        (arrs, field), stats = jax.lax.scan(body, (arrs, field), None,
-                                            length=n_steps)
-        return stats
-
-    np.asarray(coupled_fused(M, arrs0, f0, N_STEPS))  # compile + warm
-    t0 = time.time()
-    stats = np.asarray(coupled_fused(M, arrs0, f0, N_STEPS))
-    wall = time.time() - t0
-    assert np.isfinite(stats).all()
-    print(json.dumps({
-        "metric": "coupled_spmv_plus_pic_step_fused",
         "n": p.npoints, "markers": p.npoints * mpc,
         "nnz": int(M.nnz), "steps": N_STEPS,
         "value": round(wall / N_STEPS * 1e3, 3), "unit": "ms/step",

@@ -25,7 +25,8 @@ CASES = [
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
+    from emme_tpu import accel
+    accel.enable_compile_cache()
     import jax.numpy as jnp
     from emme_tpu import from_config
     from emme_tpu.solvers import eigen

@@ -3,7 +3,8 @@ marker path (``pic.run_sorted``) at the canonical tokamak PIC case and at
 scaled-up grids where the window win grows.
 
 The sorted path's one-hot matmuls span a W-cell window instead of all nf
-cells (nf/W fewer MXU flops, identical arithmetic); see pic.py:344-357.
+cells (nf/W fewer flops, identical arithmetic); see pic.py's sorted-window
+section.
 Prints one JSON line per case with both times, the speedup, the fitted
 (omega, gamma) of each, and the sorted path's violation count (must be 0).
 """
@@ -21,14 +22,14 @@ import numpy as np
 def bench_case(npoints, mpc, n_steps, dt, window, resort_every, repeats=3):
     import jax
     import jax.numpy as jnp
-    from emme_tpu import from_config
+    from emme_tpu import accel, from_config
     from emme_tpu.solvers import pic
 
     with open(REPO / "tests" / "goldens" / "inputs" / "tokamak.json") as f:
         cfg = json.load(f)
     cfg["npoints"] = npoints
-    on_tpu = jax.default_backend() not in ("cpu",)
-    p = from_config(cfg, dtype=jnp.float32 if on_tpu else
+    on_card = accel.current() == "gpu"
+    p = from_config(cfg, dtype=jnp.float32 if on_card else
                     jnp.asarray(0.0).dtype)
 
     run = jax.jit(lambda key: pic.run(p, mpc, n_steps, dt, key=key)[0])

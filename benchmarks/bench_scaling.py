@@ -5,12 +5,12 @@ Runs the pair-sharded assembly and the marker-sharded PIC step over meshes
 of 1, 2, 4, ... devices with FIXED PER-DEVICE WORK and reports the weak
 efficiency t(1) / t(N).
 
-On real TPU slices the 'rows' axis rides ICI and this measures true comm/
-compute overlap.  On this dev host only a virtual CPU mesh is available
-(XLA_FLAGS=--xla_force_host_platform_device_count=N over 2 physical
-cores), so the numbers validate the collective structure (no sharding-
-induced blowups, constant per-device memory), NOT hardware scaling --
-run on a pod slice for the real curve.
+On several cards the 'rows' axis rides the interconnect and this measures
+true comm/compute overlap.  On the CPU's virtual mesh
+(XLA_FLAGS=--xla_force_host_platform_device_count=N) the numbers validate
+the collective structure (no sharding-induced blowups, constant per-device
+memory), NOT hardware scaling -- set EMME_SCALING_CARDS=1 on a multi-card
+host for the real curve.
 """
 import json
 import os
@@ -29,11 +29,9 @@ import numpy as np
 
 def main():
     import jax
-    # default to the virtual CPU mesh; set EMME_SCALING_TPU=1 on a pod
-    # slice for the real curve.  (The JAX_PLATFORMS env var is ignored when
-    # a TPU plugin is present; the config API must be used BEFORE any
-    # device query.)
-    if not os.environ.get("EMME_SCALING_TPU"):
+    # default to the virtual CPU mesh; set EMME_SCALING_CARDS=1 on a
+    # multi-card host for the real curve
+    if not os.environ.get("EMME_SCALING_CARDS"):
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     from emme_tpu import from_config

@@ -34,14 +34,14 @@ BAND_DETA = 10.0
 
 def main(sizes):
     import jax
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from emme_tpu import accel
+    accel.enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    if not on_tpu:
+    on_card = accel.current() == "gpu"
+    dtype = jnp.float32 if on_card else jnp.float64
+    if not on_card:
         jax.config.update("jax_enable_x64", True)
 
     from emme_tpu import from_config

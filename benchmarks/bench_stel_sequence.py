@@ -1,14 +1,14 @@
-"""Validate the TPU eigen path against the native stellarator golden
+"""Validate the device eigen path against the native stellarator golden
 sequence (n = 128 / 256 / 512 / 1024).
 
 The goldens in tests/goldens/stellarator_sequence.json were generated by the
 native CPU engine (reference-equivalent adaptive quadrature, f64) from the
 canonical initial guess of /root/reference/input-stellarator-example.json.
 This script reruns each grid size with the JAX panel-quadrature path on the
-available accelerator (TPU f32 assembly + host complex128 polish via
+available accelerator (f32 assembly + host complex128 polish via
 ``host64=True``) from the SAME guess and reports the relative eigenvalue
-disagreement -- the grid-sequence tie between the TPU n=1024 answer and the
-reference-exact engine that VERDICT round 1 asked for.
+disagreement -- the grid-sequence tie between the device n=1024 answer and
+the reference-exact engine.
 
 Writes/updates STEL_VALIDATION.md at the repo root and prints one JSON line
 per case.  Usage:  python benchmarks/bench_stel_sequence.py [n ...]
@@ -25,7 +25,7 @@ sys.path.insert(0, str(REPO))
 OUT_MD = REPO / "STEL_VALIDATION.md"
 OUT_JSON = REPO / "benchmarks" / "results_stel_sequence.json"
 
-HEADER = """# Stellarator grid-sequence validation (TPU vs native reference engine)
+HEADER = """# Stellarator grid-sequence validation (device vs native reference engine)
 
 Canonical case: `/root/reference/input-stellarator-example.json` (q=2,
 beta_e=0.02 electromagnetic, G-K order 31, guess omega0 = -1.656 + 2.490i).
@@ -33,7 +33,7 @@ Goldens: `tests/goldens/stellarator_sequence.json`, generated by the
 reference-exact native engine (f64 adaptive quadrature; agreement with the
 C++ reference is asserted at 1e-12 in tests/test_native.py).
 
-Each row solves from the SAME canonical initial guess with the TPU path
+Each row solves from the SAME canonical initial guess with the device path
 (f32 panel-quadrature assembly on device, host complex128 bordered-Newton
 polish to |d_omega| < 1e-6 |omega|) and compares the converged eigenvalue.
 Note the sequence is NOT monotone in n: the Newton iteration from a fixed
@@ -41,24 +41,24 @@ guess selects different mode branches at coarse n (the n=1024 row is the
 canonical case; its 3-step convergence shows the guess sits on the tracked
 branch there).
 
-| n | golden omega (native, f64) | TPU omega (f32 + host64 polish) | rel err | steps (golden) | steps (TPU) | TPU wall s |
-|---|---|---|---|---|---|---|
+| n | golden omega (native, f64) | device omega (f32 + host64 polish) | rel err | steps (golden) | steps (device) | wall s | device |
+|---|---|---|---|---|---|---|---|
 """
 
 
 def main(sizes):
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from emme_tpu import accel
+    accel.enable_compile_cache()
     import jax.numpy as jnp
 
     from emme_tpu import from_config
     from emme_tpu.solvers import eigen
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    if not on_tpu:
+    on_card = accel.current() == "gpu"
+    dtype = jnp.float32 if on_card else jnp.float64
+    if not on_card:
         jax.config.update("jax_enable_x64", True)
 
     with open(REPO / "tests" / "goldens" / "inputs" / "stellarator.json") as f:
@@ -86,7 +86,7 @@ def main(sizes):
             wall = time.time() - t0
             results[key] = {"omega": [om.real, om.imag], "steps": steps,
                             "wall_s": round(wall, 1),
-                            "backend": jax.default_backend()}
+                            "device": jax.devices()[0].device_kind}
             with open(OUT_JSON, "w") as f:
                 json.dump(results, f, indent=1)
         r = results[key]
@@ -98,7 +98,8 @@ def main(sizes):
         rows.append(
             f"| {n} | {ref.real:.12g} {ref.imag:+.12g}i | "
             f"{om.real:.12g} {om.imag:+.12g}i | {rel:.2e} | "
-            f"{goldens[key]['steps']} | {r['steps']} | {r['wall_s']} |")
+            f"{goldens[key]['steps']} | {r['steps']} | {r['wall_s']} | "
+            f"{r.get('device', 'not recorded')} |")
 
     with open(OUT_MD, "w") as f:
         f.write(HEADER)

@@ -1,10 +1,10 @@
-"""Diagnose the stel128/stel256 TPU-vs-native disagreement seen in
+"""Diagnose the stel128/stel256 device-vs-native disagreement seen in
 STEL_VALIDATION.md (1.2e-4 / 1.7e-3 rel, vs 4e-6 / 1.3e-5 at n=512/1024).
 
 Two hypotheses, separated here on CPU f64:
   (a) panel-mesh quadrature error (present at f64 too)  -> f64 solve from
       the canonical guess lands at the same offset;
-  (b) eigenvalue ill-conditioning amplifying the TPU's f32 assembly
+  (b) eigenvalue ill-conditioning amplifying the f32 assembly
       rounding -> condition estimate kappa = sum|v_i v_j| / |v^T M' v|
       (relative-entry-perturbation to d_omega gain) is large at n=128/256
       and small at n=512/1024.

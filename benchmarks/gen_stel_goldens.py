@@ -5,7 +5,7 @@ The reference's own canonical stellarator case is n=1024
 (/root/reference/input-stellarator-example.json:1-31), but the repo's round-1
 goldens stopped at stel128 with truncated precision and no step count
 (VERDICT "what's weak" #1).  This script regenerates stel128 at full
-precision and extends the golden sequence to n=256 and n=512 so the TPU
+precision and extends the golden sequence to n=256 and n=512 so the device
 n=1024 answer can be tied to a grid-convergence sequence.
 
 Writes results incrementally to tests/goldens/stellarator_sequence.json so a

@@ -1,27 +1,11 @@
-"""Microbenchmark of PIC CIC primitive implementations on the TPU.
+"""Microbenchmark of PIC CIC primitive implementations on the device.
 
-Methodology (hard-won, see the verify notes): every variant runs inside a
-dependent ``fori_loop`` chain whose INPUTS vary with the carry -- without
-that, XLA either dead-code-eliminates all but the consumed slice of the
+Methodology: every variant runs inside a dependent ``fori_loop`` chain
+whose INPUTS vary with the carry -- without that, XLA either dead-code-eliminates all but the consumed slice of the
 output (an early version "measured" a full-width gather at 0.09 ms by
 letting XLA slice the matmul to one row) or hoists the loop-invariant body
 out of the chain entirely (negative times).  Outputs are consumed by full
 sums; timings difference two chain lengths.
-
-Representative v5e measurements at 1M markers x 1024 cells (f32):
-
-    gather: chunked scan one-hot (round-3 pic.py)     2.32 ms
-    gather: flat transposed one-hot dot (round 4)     0.65-0.83 ms standalone
-                                                      (~2.2-2.3 ms in-context)
-    gather: jnp.take rows                             2.7-3.1 ms
-    gather: windowed batched einsum W=256             0.35 ms
-    deposit: chunked scan one-hot (round-3)           2.11 ms
-    deposit: flat transposed one-hot dot (round 4)    1.05 ms
-    deposit: segment_sum                              9.5-10 ms
-    deposit: windowed + scatter fold W=256            1.47 ms
-    lax.sort 11 operands                              1.55 ms
-
-See BENCH_PIC.md for the full ledger and the emitter-bound roofline.
 """
 import pathlib
 import sys
@@ -36,7 +20,8 @@ import numpy as np
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
+    from emme_tpu import accel
+    accel.enable_compile_cache()
 
     n, nf, W, chunk = 1 << 20, 1024, 256, 8192
     n_chunks = n // chunk

@@ -5,7 +5,7 @@ the REFERENCE acceptance criterion err <= max(integration_accuracy,
 integration_precision * |I|) (functions.h:237-247) -- the same criterion the
 runtime quadrature_guard enforces -- measured as the DIRECT deviation from
 the f64 dense mesh (40/144/16, the golden-grade reference the tier table was
-originally validated on, BENCH_ASSEMBLY.md) with a 2x safety margin.
+originally validated on) with a 2x safety margin.
 
 Envelope: the canonical tokamak (ES, acc=prec=1e-6 -- the binding case) and
 stellarator (EM, m=0,1,2 moments, acc=1e-2/prec=1e-5) cases, each at the

@@ -1,7 +1,7 @@
-"""emme_tpu: TPU-native gyrokinetic eigensolver framework.
+"""emme_tpu: gyrokinetic eigensolver framework on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of EMME
-(reference: ssskkkky/EMME), built TPU-first: batched kernel-integral
+(reference: ssskkkky/EMME), built for accelerators: batched kernel-integral
 assembly, complex linear algebra, delta-f PIC, and mesh-sharded execution.
 """
 __version__ = "0.1.0"

@@ -10,21 +10,36 @@ import argparse
 import sys
 
 
+def virtual_cpu_devices(device: str, rows, scan, env) -> int:
+    """Virtual CPU devices a run needs (0: none).  Only a CPU run with a
+    mesh gets them: driver.run ignores a topology without rows, and a card
+    never borrows CPU devices for a mesh it cannot hold."""
+    on_cpu = device == "cpu" or (device == "auto"
+                                 and env.get("JAX_PLATFORMS") == "cpu")
+    need = int(rows or 0) * int(scan or 1)
+    return need if on_cpu and need > 1 else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="emme_tpu",
-        description="TPU-native gyrokinetic eigensolver (EMME-compatible inputs)")
+        description="Gyrokinetic eigensolver on JAX (EMME-compatible inputs)")
     ap.add_argument("input", nargs="?", default="input.json",
                     help="input JSON file (default: input.json)")
     ap.add_argument("-o", "--output-dir", default=".",
                     help="directory for output.json and eigenMatrics/")
-    ap.add_argument("--device", choices=["auto", "cpu", "tpu"], default="auto",
-                    help="compute platform (default: auto)")
+    ap.add_argument("--device", choices=["auto", "cpu", "gpu"],
+                    default="auto",
+                    help="compute platform: gpu fails at once on a machine "
+                         "without a CUDA card; auto takes JAX's default "
+                         "(default: auto)")
     ap.add_argument("--f32", action="store_true",
-                    help="single precision (complex64) -- the fast TPU path")
+                    help="single precision (complex64); the default is "
+                         "double precision (complex128)")
     ap.add_argument("--host64", action="store_true",
-                    help="hybrid polish: device assembly + host complex128 "
-                         "linalg (reference tolerance on f32 TPU)")
+                    help="hybrid polish: device f32 assembly + host "
+                         "complex128 linalg (reaches the reference "
+                         "tolerance from an --f32 run)")
     ap.add_argument("--no-checkpoint", action="store_true",
                     help="disable scan checkpoint/resume")
     ap.add_argument("--chunk", type=int, default=2048,
@@ -56,15 +71,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh_scan and not args.mesh_rows:
-        # a scan axis without a rows axis was silently ignored (ADVICE r4)
+        # a scan axis without a rows axis would be silently ignored
         ap.error("--mesh-scan requires --mesh-rows (use --mesh-rows 1 for "
                  "a pure scan-parallel topology)")
 
     # the topology may come from the CLI or the input JSON "mesh" key, or a
-    # MIX (CLI rows + JSON scan) -- replicate driver.run's per-axis merge
-    # exactly, because a CPU mesh needs virtual devices and the XLA flag
-    # must be set before jax initializes (ADVICE r4: the JSON-sourced
-    # topology used to skip this and die later with 'needs N devices')
+    # MIX (CLI rows + JSON scan) -- replicate driver.run's per-axis merge,
+    # because a CPU mesh needs virtual devices and the XLA flag must be set
+    # before jax initializes
     try:
         import json
         with open(args.input) as f:
@@ -75,24 +89,25 @@ def main(argv=None):
         else mesh_cfg.get("rows")
     scan = args.mesh_scan if args.mesh_scan is not None \
         else mesh_cfg.get("scan", 1)
-    need = int(rows or 1) * int(scan or 1)
     import os
-    if need > 1 and args.device != "tpu":
-        flags = os.environ.get("XLA_FLAGS", "")
-        if "xla_force_host_platform_device_count" not in flags:
-            os.environ["XLA_FLAGS"] = (
-                flags + " --xla_force_host_platform_device_count"
-                        f"={need}").strip()
+    need = virtual_cpu_devices(args.device, rows, scan, os.environ)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if need and "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + f" --xla_force_host_platform_device_count={need}").strip()
 
     import jax
-    if args.device == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    elif args.device == "tpu":
-        jax.config.update("jax_platforms", "tpu,cpu")
-    if not args.f32:
-        jax.config.update("jax_enable_x64", True)
+    from . import accel
+    if args.device != "auto":
+        # "gpu" lists CUDA alone: a machine without a card fails here
+        # instead of running on the CPU
+        jax.config.update("jax_platforms",
+                          {"cpu": "cpu", "gpu": "cuda"}[args.device])
+        accel.require(args.device)
+    jax.config.update("jax_enable_x64", not args.f32)
     import jax.numpy as jnp
 
+    accel.enable_compile_cache()
     from . import driver
     dtype = jnp.float32 if args.f32 else jnp.float64
     driver.run(args.input, output_dir=args.output_dir, dtype=dtype,

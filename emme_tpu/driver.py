@@ -91,11 +91,38 @@ def filter_input(cfg: dict) -> dict:
     return out
 
 
+# input keys of kernels that no longer exist; an input that still sets one
+# fails loudly instead of silently running another path
+REMOVED_KEYS = {
+    "pic_backend": "the fused PIC marker kernel was removed; PIC runs the "
+                   "XLA path",
+    "pic_launch": "the single-launch PIC kernel was removed",
+    "pic_precision": "the fused PIC marker kernel was removed",
+    "spmv_method": "the BSR SpMV kernel was removed; the banded SpMV is "
+                   "always the BDIA contraction",
+}
+
+
+def reject_removed_keys(cfg: dict):
+    for k, why in REMOVED_KEYS.items():
+        if k in cfg:
+            raise ValueError(f"input key {k!r} is no longer supported: {why}")
+
+
 def _typed_array(vec) -> list:
     """Complex vector -> [[re, im], ...] matching the reference's typed-array
     output extension (JsonParser.h:260-278)."""
     v = fetch(vec)
     return [[float(x.real), float(x.imag)] for x in v]
+
+
+def _device_ids(tree) -> list[int]:
+    """Ids of the devices holding the device arrays in ``tree``: where a
+    solve's operator or markers actually lived (a mesh run shows every
+    device of its rows axis)."""
+    return sorted({d.id for x in jax.tree_util.tree_leaves(tree)
+                   if isinstance(x, jax.Array)
+                   for d in x.sharding.device_set})
 
 
 def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
@@ -109,7 +136,7 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
     (parallel/sharded.solve); sparse backend -> the FULLY distributed
     SPIKE Newton solve (parallel/spike.solve: sharded assembly + per-shard
     banded LU + exact Woodbury trace)."""
-    timer = Timer.get_timer()
+    reject_removed_keys(cfg)
     p = params_mod.from_config(cfg, dtype=dtype)
     tol = float(cfg.get("iteration_precision", 1e-6))
 
@@ -142,7 +169,6 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
                 m_krylov=int(cfg.get("m_krylov", 0)),
                 method=method,
                 tiered=cfg.get("quad_tiered"),
-                spmv=cfg.get("spmv_method"),
                 fused=cfg.get("fused_assembly"),
                 stats=stats)
             M_dump = state.M
@@ -249,6 +275,7 @@ def solve_once_eigen(cfg: dict, omega_guess: complex, matrix_file=None,
         "eigenvalue": [omega.real, omega.imag],
         "eigenvector": _typed_array(vec),
         "iteration_steps": n_steps,
+        "devices": _device_ids((M_dump, vec)),
     }
     if guard_stats is not None:
         result["quadrature_guard"] = guard_stats
@@ -263,19 +290,14 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
                    dtype=jnp.float64, seed: int = 0, mesh=None, **_) -> dict:
     """One PIC-method solve (main.cpp:82-137).
 
-    Config surface beyond the reference: ``pic_backend`` ('auto' | 'fused' |
-    'xla': the hand-fused Pallas marker kernel -- default on TPU for
-    f32 / npoints%128==0 runs -- vs the XLA chain), ``pic_precision``
-    ('default' | 'high' | 'highest' MXU passes in the fused kernel),
-    ``pic_launch`` ('auto' | 'single' | 'stages': the whole time loop as
-    ONE pallas_call vs one call per RK stage; see solvers/pallas_pic.py),
-    ``gather_method`` ('take' | 'matmul'), ``deposit_method`` ('segment' |
-    'matmul'), ``pic_timers``
+    Config surface beyond the reference: ``gather_method`` ('take' |
+    'matmul'), ``deposit_method`` ('segment' | 'matmul'), ``pic_timers``
     (per-phase Particle Pushing / Field Solve / Diagnostics sections via a
     host-driven loop), ``time_step_adaptive`` (embedded-error step control,
     the reference Integrator's step_adaptive that its main() never wires
     up).  ``mesh``: markers shard over the ``rows`` axis with psum
     deposition (parallel/sharded.pic_sharded_run)."""
+    reject_removed_keys(cfg)
     p = params_mod.from_config(cfg, dtype=dtype)
     mpc = int(cfg["marker_per_cell"])
     nt = int(cfg["step_number"])
@@ -360,40 +382,11 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
                 gather_method=cfg.get("gather_method"),
                 deposit_method=cfg.get("deposit_method"))
         else:
-            backend = cfg.get("pic_backend", "auto")
-            if backend not in ("auto", "fused", "xla"):
-                raise ValueError(f"pic_backend must be auto|fused|xla, "
-                                 f"got {backend!r}")
-            m = mpc * int(p.npoints)
-            fused_ok = (jnp.dtype(dtype) == jnp.float32
-                        and int(p.npoints) % 128 == 0 and m % 1024 == 0)
-            if backend == "fused" and not fused_ok:
-                raise ValueError(
-                    "pic_backend='fused' needs f32, npoints % 128 == 0 "
-                    "and markers % 1024 == 0")
-            # auto never drops the buffered field dump silently; explicit
-            # 'fused' trades the dump for speed (streaming runs keep the
-            # XLA path either way)
-            use_fused = backend == "fused" or (
-                backend == "auto" and fused_ok and matrix_file is None
-                and jax.default_backend() == "tpu")
-            if use_fused:
-                # hand-fused Pallas marker pass (solvers/pallas_pic.py):
-                # ~7x the XLA path on TPU, statistically identical
-                from .solvers import pallas_pic
-                stats, state, fields = pallas_pic.run(
-                    p, mpc, nt, dt, key=key,
-                    precision=cfg.get("pic_precision", "default"),
-                    launch=cfg.get("pic_launch", "auto"))
-            else:
-                # run_jitted: the eager composition is not runnable on the
-                # TPU backend (eager complex ops unimplemented) and would
-                # recompile per scan point
-                stats, state, fields = pic.run_jitted(
-                    p, mpc, nt, dt, key=key,
-                    record_fields=matrix_file is not None,
-                    gather_method=cfg.get("gather_method"),
-                    deposit_method=cfg.get("deposit_method"))
+            stats, state, fields = pic.run_jitted(
+                p, mpc, nt, dt, key=key,
+                record_fields=matrix_file is not None,
+                gather_method=cfg.get("gather_method"),
+                deposit_method=cfg.get("deposit_method"))
 
     if matrix_file is not None and fields is not None:
         fetch(fields).astype(np.complex128).tofile(matrix_file)
@@ -409,6 +402,7 @@ def solve_once_pic(cfg: dict, omega_guess: complex, matrix_file=None,
     result = {
         "eigenvalue": [omega.real, omega.imag],
         "eigenvector": _typed_array(state.field),
+        "devices": _device_ids(state),
     }
     if adaptive:
         result["adaptive_steps"] = int(len(times))
@@ -574,6 +568,7 @@ def run(input_cfg: dict | str | pathlib.Path, output_dir=".",
     if not isinstance(input_cfg, dict):
         with open(input_cfg) as f:
             input_cfg = json.load(f)
+    reject_removed_keys(input_cfg)
 
     if debug or input_cfg.get("debug"):
         # the reference's EMME_DEBUG analogue: NaN-raising jits + input
@@ -599,10 +594,6 @@ def run(input_cfg: dict | str | pathlib.Path, output_dir=".",
         from .parallel import mesh as mesh_mod
         devices = jax.devices()
         need = int(rows) * scan_groups
-        if len(devices) < need:
-            # fall back to the (possibly virtual) CPU backend, as
-            # dryrun_multichip does on single-accelerator hosts
-            devices = jax.devices("cpu")
         if len(devices) < need:
             raise ValueError(
                 f"mesh rows={rows} x scan={scan_groups} needs {need} "

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ assembly engine (native/emme_native.cpp).
 
-The native engine is the CPU-exact counterpart of the TPU path: adaptive
+The native engine is the CPU-exact counterpart of the device path: adaptive
 Gauss-Kronrod quadrature in f64 with the same physics kernels, multithreaded
 over matrix entries.  Used for self-validation goldens and as a fast CPU f64
 assembly backend.  Built on demand with the toolchain in native/Makefile.

@@ -1,4 +1,4 @@
-"""Block-banded complex LU factorization + triangular solves on TPU.
+"""Block-banded complex LU factorization + triangular solves on device.
 
 The shifted systems of the sparse eigensolve path (shift-invert Arnoldi and
 the bordered-Newton polish) need M(sigma)^{-1} applied to vectors without
@@ -14,8 +14,7 @@ is a block-banded LU **without pivoting**:
 
 Banded LU has no fill outside the band, so the factors live in the same
 (nb, 2h+1) block-row storage.  All block products are (re, im)-plane
-matmuls on the MXU (the TPU backend implements complex dtypes only
-elementwise); the per-step inverse is one real 2bs x 2bs inverse.
+real matmuls; the per-step inverse is one real 2bs x 2bs inverse.
 
 No pivoting is safe here in the usual shift-invert sense: the operator's
 diagonal blocks are dominated by the reference's 1 + 1/tau identity term
@@ -43,10 +42,10 @@ def _cmm(a, b):
 
 def _cmm_b(a, b):
     """Batched complex block matmul on (..., 2, bs, x) planes: one pair of
-    batched MXU matmuls per plane combination instead of a Python loop of
-    per-block products (the loop form emits O(h^2) individual 128x128
-    matmul HLOs per factorization step -- serialization the MXU pipeline
-    never recovers from; the batched form is a single fat matmul)."""
+    batched matmuls per plane combination instead of a Python loop of
+    per-block products (the loop form emits O(h^2) individual small matmul
+    HLOs per factorization step; the batched form is a single fat
+    matmul)."""
     ar, ai = a[..., 0, :, :], a[..., 1, :, :]
     br, bi = b[..., 0, :, :], b[..., 1, :, :]
     return jnp.stack([ar @ br - ai @ bi, ar @ bi + ai @ br], axis=-3)
@@ -54,7 +53,7 @@ def _cmm_b(a, b):
 
 def _cmm_sum(a, b, axis: int = 0):
     """sum_k a[k] @ b[k] on (k, 2, bs, x) planes as ONE contraction:
-    einsum over the block index k runs as a single MXU matmul with the
+    einsum over the block index k runs as a single matmul with the
     contraction dimension k*bs."""
     ar, ai = a[:, 0], a[:, 1]
     br, bi = b[:, 0], b[:, 1]
@@ -111,10 +110,10 @@ def rowmajor_from_bdia(op) -> tuple:
 
 def banded_lu(op) -> BandedLU:
     """Factor a BDIAOperator in place of its band.  Jittable; nb sequential
-    scan steps.  Each step's O(h^2) block products run as TWO batched MXU
+    scan steps.  Each step's O(h^2) block products run as TWO batched
     matmuls (L = rows @ invD over i; upd = L_i U_j over (i, j)) rather than
-    a Python loop of h^2 individual 128-wide matmuls -- the loop form is
-    what made the factorization chain the tok8192 bottleneck (BENCH docs).
+    a Python loop of h^2 individual block matmuls -- the loop form made the
+    factorization chain the tok8192 bottleneck.
 
     Scatter geometry: row i (i = 1..h) takes L_i at band column h-i and
     -upd[i, j] at columns h+j-i (j = 1..h, a contiguous run).  Both are

@@ -1,4 +1,4 @@
-"""Scaled complex modified-Bessel I0/I1 and real J0/J1, vectorized for TPU.
+"""Scaled complex modified-Bessel I0/I1 and real J0/J1, vectorized.
 
 The reference evaluates scaled I0/I1 of a complex argument inside its hottest
 integrand with a data-dependent Miller backward recurrence
@@ -10,7 +10,7 @@ are provided:
   arguments within the configured bounds.  Used for parity validation.
 * ``bessel_i01_scaled`` (default) -- a branchless Taylor + asymptotic hybrid,
   ~10x cheaper per evaluation and accurate to ~1e-12 relative; this is the
-  production TPU path.
+  production path.
 
 Both return the *scaled* pair ``(I0(z)*e^{zs}, I1(z)*e^{zs}, zs)`` with
 ``zs = z if Re z < 0 else -z`` (so ``|e^{zs}| <= 1``), matching how the

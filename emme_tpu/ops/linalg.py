@@ -1,15 +1,13 @@
-"""Complex dense linear algebra that runs on TPU.
+"""Complex dense linear algebra.
 
-This TPU generation implements real f32/f64-free LU/QR/SVD only for REAL
-dtypes; complex LAPACK-style ops (the reference leans on zsysv/zgesdd/zgeqp3,
-``solver.h:113-383``) are UNIMPLEMENTED on the TPU backend.  The standard
-TPU-native answer is the real 2n x 2n embedding
+The reference leans on complex LAPACK (zsysv/zgesdd/zgeqp3,
+``solver.h:113-383``).  On the CPU and the GPU XLA provides the direct
+complex ops, which are used by default.  The real 2n x 2n embedding
 
     M = A + iB   ->   R = [[A, -B], [B, A]],   M v = c  <->  R [x; y] = [re c; im c]
 
-which preserves norms and null spaces, so solve / nullspace run on the MXU in
-real arithmetic.  On CPU (complex LAPACK available through XLA) the direct
-complex ops are used.
+preserves norms and null spaces, so solve / nullspace can also run in real
+arithmetic (``force_real_embedding=True``, kept as a cross-check).
 """
 
 from __future__ import annotations
@@ -45,8 +43,7 @@ def complex_solve(M, C, force_real_embedding: bool = False):
 
 def complex_solve_trace(M, dM, force_real_embedding: bool = False):
     """trace(M^{-1} dM) -- the Newton-trace-secant denominator
-    (solver.h:129-139).  Computed on real planes (complex diagonal
-    extraction is a memory op the TPU backend lacks)."""
+    (solver.h:129-139)."""
     if _backend_supports_complex_linalg() and not force_real_embedding:
         return jnp.trace(jnp.linalg.solve(M, dM))
     n = M.shape[-1]
@@ -57,8 +54,7 @@ def complex_solve_trace(M, dM, force_real_embedding: bool = False):
 
 
 def complex_bilinear(v, M):
-    """v^T M v for complex v, M, computed on real planes (no complex
-    reductions -- the TPU backend lacks them)."""
+    """v^T M v for complex v, M, computed on real planes."""
     vr, vi = jnp.real(v), jnp.imag(v)
     Mr, Mi = jnp.real(M), jnp.imag(M)
     wr = Mr @ vr - Mi @ vi
@@ -72,7 +68,7 @@ def qr_column_pivoted(M):
     """Householder QR with column pivoting (Businger-Golub greedy pivot on
     trailing column norms -- the algorithm family behind LAPACK ``zgeqp3``,
     which the reference's QR-secant iteration calls at solver.h:246-252),
-    on (re, im) planes under one ``lax.scan`` (no complex linalg on TPU).
+    on (re, im) planes under one ``lax.scan``.
 
     Phase convention: beta = -(alpha/|alpha|) * ||x|| (the numerically
     stable 'phase of alpha' choice).  The QR-secant update below is
@@ -232,11 +228,10 @@ def null_space_vector(M, force_real_embedding: bool = False,
     match the reference's nullSpace() output convention (solver.h:58-112).
 
     Methods:
-      * ``svd`` (CPU default): exact reference semantics.
-      * ``inverse`` (TPU default): inverse iteration on the real embedding --
-        two LU solves amplify the null direction by 1/sigma_min, orders of
-        magnitude faster than TPU SVD (which lowers to a slow host-free
-        Jacobi-style routine) and *more* accurate in f32.
+      * ``svd`` (default with complex linalg): exact reference semantics.
+      * ``inverse`` (default on the real embedding): inverse iteration --
+        two LU solves amplify the null direction by 1/sigma_min, and are
+        *more* accurate than an SVD in f32.
     """
     complex_ok = _backend_supports_complex_linalg() and not force_real_embedding
     if method is None:

@@ -1,8 +1,8 @@
-"""Fixed-shape Gauss-Kronrod panel quadrature, vectorized for TPU.
+"""Fixed-shape Gauss-Kronrod panel quadrature, vectorized.
 
 The reference (``/root/reference/include/functions.h:181-331``) integrates each
 kernel integral with a worklist-based *adaptive* Gauss-Kronrod subdivision --
-data-dependent control flow that cannot batch on TPU.  Here the same G-K 15/31
+data-dependent control flow that cannot batch on an accelerator.  Here the same G-K 15/31
 rules are applied on a *static* set of panels whose boundaries (but never their
 count) may depend on traced values, so ~10^6 integrals evaluate as one fused
 XLA computation.  Per-panel embedded error estimates are returned so callers

@@ -1,18 +1,12 @@
-"""Block-sparse (BSR) complex operator with a Pallas TPU SpMV kernel.
+"""Block-diagonal (BDIA) complex operator for the banded kernel-integral
+operator and its SpMV.
 
-The BASELINE north star routes the assembled kernel-integral operator
-(solver.h:417-515 in the reference, dense there) through block-sparse storage
-with a hand-tiled SpMV: kappa decays with |eta - eta'|, so far-off-diagonal
-blocks fall below threshold and can be dropped, and the singularity-handler
-band structure (singularity_handler.cpp:3-24) concentrates weight near the
-diagonal.
-
-Representation: 128x128 blocks (MXU tile) stored as separate (re, im) f32/f64
-planes -- the TPU backend implements complex dtypes only elementwise, so all
-storage and data movement is real.  The Pallas kernel walks the BSR structure
-with scalar-prefetched (row_ptr, col_idx) so each grid step DMAs exactly one
-matrix block and the x segment it needs; consecutive steps in the same block
-row keep the y accumulator resident in VMEM.
+The assembled kernel-integral operator (solver.h:417-515 in the reference,
+dense there) is banded: kappa decays with |eta - eta'|, so far-off-diagonal
+blocks fall below threshold and are never assembled, and the
+singularity-handler band structure (singularity_handler.cpp:3-24)
+concentrates weight near the diagonal.  Blocks are stored as separate
+(re, im) planes.
 """
 
 from __future__ import annotations
@@ -23,118 +17,8 @@ from typing import Any
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 DEFAULT_BLOCK = 128
-
-
-@dataclass(frozen=True)
-class BSROperator:
-    """Block-sparse row operator over (re, im) planes.
-
-    data: (nnzb, 2, bs, bs)  -- [:, 0] real plane, [:, 1] imag plane
-    col_idx: (nnzb,) int32   -- column block of each stored block
-    row_of: (nnzb,) int32    -- row block of each stored block (row-major order)
-    row_ptr: (n_row_blocks+1,) int32
-    """
-    data: Any
-    col_idx: Any
-    row_of: Any
-    row_ptr: Any
-    n: int
-    block: int
-
-    @property
-    def nnzb(self) -> int:
-        return self.data.shape[0]
-
-    @property
-    def nnz(self) -> int:
-        return self.nnzb * self.block * self.block
-
-
-jax.tree_util.register_dataclass(
-    BSROperator, data_fields=["data", "col_idx", "row_of", "row_ptr"],
-    meta_fields=["n", "block"])
-
-
-def bsr_from_dense(M, block: int = DEFAULT_BLOCK, threshold: float = 0.0):
-    """Host-side conversion: keep blocks whose max |entry| > threshold *
-    max|M|.  threshold=0 keeps every block (dense-in-BSR, the honest default
-    for this operator unless the caller opts into dropping)."""
-    M = np.asarray(M)
-    n = M.shape[0]
-    assert n % block == 0, (n, block)
-    nb = n // block
-    blocks = M.reshape(nb, block, nb, block).transpose(0, 2, 1, 3)
-    mags = np.abs(blocks).max(axis=(2, 3))
-    keep = mags > threshold * (np.abs(M).max() + 1e-300)
-    row_of, col_idx = np.nonzero(keep)
-    data = np.stack([blocks[row_of, col_idx].real,
-                     blocks[row_of, col_idx].imag], axis=1)
-    row_ptr = np.zeros(nb + 1, np.int32)
-    np.add.at(row_ptr[1:], row_of, 1)
-    row_ptr = np.cumsum(row_ptr).astype(np.int32)
-    rdtype = jnp.float64 if M.dtype == np.complex128 else jnp.float32
-    return BSROperator(
-        data=jnp.asarray(data, rdtype),
-        col_idx=jnp.asarray(col_idx.astype(np.int32)),
-        row_of=jnp.asarray(row_of.astype(np.int32)),
-        row_ptr=jnp.asarray(row_ptr),
-        n=n, block=block)
-
-
-def bsr_matvec_ref(op: BSROperator, xr, xi):
-    """Pure-jnp reference BSR matvec on planes: y = A x (complex)."""
-    bs = op.block
-    nb = op.n // bs
-    xr_b = xr.reshape(nb, bs)
-    xi_b = xi.reshape(nb, bs)
-    ar = op.data[:, 0]
-    ai = op.data[:, 1]
-    gxr = xr_b[op.col_idx]
-    gxi = xi_b[op.col_idx]
-    pyr = jnp.einsum("kij,kj->ki", ar, gxr) - jnp.einsum("kij,kj->ki", ai, gxi)
-    pyi = jnp.einsum("kij,kj->ki", ar, gxi) + jnp.einsum("kij,kj->ki", ai, gxr)
-    yr = jax.ops.segment_sum(pyr, op.row_of, num_segments=nb).reshape(-1)
-    yi = jax.ops.segment_sum(pyi, op.row_of, num_segments=nb).reshape(-1)
-    return yr, yi
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel
-# ---------------------------------------------------------------------------
-
-def _spmv_kernel(row_of_ref, col_idx_ref, data_ref, x_ref, y_ref):
-    """One grid step = one stored block: y[row] += A_block @ x[col].
-
-    BlockSpec index maps (driven by the scalar-prefetched row_of/col_idx)
-    place the right matrix block and x segment in VMEM; the output spec
-    revisits the same y block for consecutive blocks of a row (row-major
-    block order), so the accumulator stays resident.
-    """
-    k = pl.program_id(0)
-    is_first = jnp.logical_or(
-        k == 0, row_of_ref[jnp.maximum(k - 1, 0)] != row_of_ref[k])
-
-    @pl.when(is_first)
-    def _():
-        y_ref[...] = jnp.zeros_like(y_ref)
-
-    ar = data_ref[0, 0]
-    ai = data_ref[0, 1]
-    xr = x_ref[0, 0]   # (r, bs): rhs lives in sublanes, block cols in lanes
-    xi = x_ref[0, 1]
-    acc = y_ref.dtype
-    # y(r, bs_row) += x(r, bs_col) . A^T -- contract over block columns.
-    dn = (((1,), (1,)), ((), ()))
-    y_ref[0, 0, :, :] += (
-        jax.lax.dot_general(xr, ar, dn, preferred_element_type=acc)
-        - jax.lax.dot_general(xi, ai, dn, preferred_element_type=acc))
-    y_ref[0, 1, :, :] += (
-        jax.lax.dot_general(xi, ar, dn, preferred_element_type=acc)
-        + jax.lax.dot_general(xr, ai, dn, preferred_element_type=acc))
 
 
 @dataclass(frozen=True)
@@ -145,8 +29,8 @@ class BDIAOperator:
 
     Each stored block diagonal d holds blocks (i, i + offsets[d]) for all
     valid i, zero-padded where i + offsets[d] falls outside the matrix, so
-    the matvec is one batched (MXU) contraction per plane with statically
-    rolled x segments -- no per-block grid steps, no gather/scatter.
+    the matvec is one batched contraction per plane with statically rolled
+    x segments -- no per-block loop, no gather/scatter.
 
     data: (ndiag, nb, 2, bs, bs) -- [:, :, 0] real plane, [:, :, 1] imag.
     offsets: static tuple of block-diagonal offsets (col_block - row_block).
@@ -231,61 +115,13 @@ def bdia_from_dense(M, block: int = DEFAULT_BLOCK, threshold: float = 0.0):
                         n=n, block=block)
 
 
-def bdia_to_bsr(op: BDIAOperator) -> BSROperator:
-    """BDIA -> BSR: static structure from the offsets (row-major block
-    order, as the Pallas SpMV kernel's accumulator residency expects), one
-    device gather for the data.  Zero-padded BDIA blocks (outside the
-    matrix) are simply not referenced."""
-    nb = op.n // op.block
-    rows_l, cols_l, diag_l = [], [], []
-    for i in range(nb):
-        for k, d in enumerate(op.offsets):
-            j = i + d
-            if 0 <= j < nb:
-                rows_l.append(i)
-                cols_l.append(j)
-                diag_l.append(k)
-    row_of = np.asarray(rows_l, np.int32)
-    col_idx = np.asarray(cols_l, np.int32)
-    diag_of = np.asarray(diag_l, np.int32)
-    row_ptr = np.zeros(nb + 1, np.int32)
-    np.add.at(row_ptr[1:], row_of, 1)
-    row_ptr = np.cumsum(row_ptr).astype(np.int32)
-    data = op.data[diag_of, row_of]            # (nnzb, 2, bs, bs)
-    return BSROperator(data=data, col_idx=jnp.asarray(col_idx),
-                       row_of=jnp.asarray(row_of),
-                       row_ptr=jnp.asarray(row_ptr),
-                       n=op.n, block=op.block)
-
-
-def pick_spmv(op: BDIAOperator, method: str | None = None):
-    """Select the SpMV route for a banded operator and return
-    (matvec(xr, xi) -> (yr, yi), name).
-
-    ``method``: "bdia" (batched-einsum block-diagonal contraction),
-    "bsr" (the Pallas BSR kernel), or None = auto: the Pallas kernel wins
-    on TPU for big blocks (1.73x at bs=256, BENCH_SPMV.md) where each grid
-    step's (bs, bs) tile amortizes its DMA; the BDIA einsums win at the
-    default bs=128 where the whole band contracts as a few fused MXU calls.
-    """
-    if method is None:
-        method = "bsr" if (op.block >= 256
-                           and jax.default_backend() == "tpu") else "bdia"
-    if method == "bdia":
-        return (lambda xr, xi: bdia_matvec(op, xr, xi)), "bdia"
-    if method == "bsr":
-        bsr = bdia_to_bsr(op)
-        return (lambda xr, xi: bsr_matvec_pallas(bsr, xr, xi)), "bsr"
-    raise ValueError(f"spmv method must be 'bdia' or 'bsr', got {method!r}")
-
-
 def bdia_matvec(op: BDIAOperator, xr, xi):
     """Block-DIA complex matvec on planes: y = A x.
 
     For each stored diagonal d the needed x segment is x rolled by -d blocks;
     wrap-around lanes hit the zero-padded blocks, so no masking is needed.
     All diagonals contract in ONE batched matmul per (re, im) plane pair --
-    the whole SpMV is 4 MXU einsums over (ndiag * nb) blocks.
+    the whole SpMV is 4 batched einsums over (ndiag * nb) blocks.
     """
     bs = op.block
     nb = op.n // bs
@@ -301,59 +137,6 @@ def bdia_matvec(op: BDIAOperator, xr, xi):
     yi = jnp.einsum(dn, ar, gxi) + jnp.einsum(dn, ai, gxr)
     yr = yr.reshape(op.n, -1)
     yi = yi.reshape(op.n, -1)
-    if vec:
-        yr, yi = yr[:, 0], yi[:, 0]
-    return yr, yi
-
-
-def bsr_matvec_pallas(op: BSROperator, xr, xi, interpret: bool | None = None):
-    """Pallas BSR SpMV/SpMM on planes.
-
-    xr, xi: (n,) vectors or (n, r) multivectors.  Returns (yr, yi) with the
-    same trailing shape.  ``interpret`` defaults to True off-TPU so the same
-    code path is testable on the CPU mesh.
-    """
-    if interpret is None:
-        from .pallas_kappa import interpret_default
-        interpret = interpret_default()
-    bs = op.block
-    nb = op.n // bs
-    vec = xr.ndim == 1
-    xr2 = xr[:, None] if vec else xr
-    xi2 = xi[:, None] if vec else xi
-    r_orig = xr2.shape[1]
-    # rhs columns sit in SUBLANES (block coords in lanes): pad to the f32
-    # sublane quantum only, not the 128 lane width.
-    r = -(-max(8, r_orig) // 8) * 8
-    if r != r_orig:
-        pad = [(0, 0), (0, r - r_orig)]
-        xr2 = jnp.pad(xr2, pad)
-        xi2 = jnp.pad(xi2, pad)
-    # x: (nb, 2, r, bs)
-    x = jnp.stack([xr2.reshape(nb, bs, r).swapaxes(1, 2),
-                   xi2.reshape(nb, bs, r).swapaxes(1, 2)], axis=1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,   # row_of, col_idx
-        grid=(op.nnzb,),
-        in_specs=[
-            pl.BlockSpec((1, 2, bs, bs), lambda k, row_of, col_idx: (k, 0, 0, 0)),
-            pl.BlockSpec((1, 2, r, bs),
-                         lambda k, row_of, col_idx: (col_idx[k], 0, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, 2, r, bs),
-                               lambda k, row_of, col_idx: (row_of[k], 0, 0, 0)),
-    )
-
-    y = pl.pallas_call(
-        _spmv_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nb, 2, r, bs), x.dtype),
-        interpret=interpret,
-    )(op.row_of, op.col_idx, op.data, x)
-
-    yr = y[:, 0].swapaxes(1, 2).reshape(op.n, r)[:, :r_orig]
-    yi = y[:, 1].swapaxes(1, 2).reshape(op.n, r)[:, :r_orig]
     if vec:
         yr, yi = yr[:, 0], yi[:, 0]
     return yr, yi

@@ -5,7 +5,7 @@ The reference's only parallelism is a single-node work-stealing thread pool
 assembly, marker pushing, charge deposition, parameter scans -- distributes
 over a ``jax.sharding.Mesh`` with named axes:
 
-  * ``rows``: the operator/marker data axis (intra-slice, rides ICI)
+  * ``rows``: the operator/marker data axis (rides the device interconnect)
   * ``scan``: embarrassingly-parallel parameter-scan / shift axis
               (multi-host, rides DCN)
 

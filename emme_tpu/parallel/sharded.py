@@ -6,7 +6,7 @@ Replaces the reference's thread-pool parallelism (one task per matrix entry,
 
   * assembly: the upper-triangle pair list shards across the ``rows`` axis;
     each device evaluates its pairs' kernel integrals, then the (small)
-    entry vector is all-gathered over ICI and materialized into the
+    entry vector is all-gathered over the interconnect and materialized into the
     operator.  This preserves the reference's 2x symmetry saving while
     scaling the quadrature work -- which is >99% of the cost -- linearly.
   * PIC: markers shard across ``rows``; CIC deposition runs per-shard and
@@ -45,7 +45,7 @@ def sharded_assemble(p, grid: Grid, coeff, omega, mesh: Mesh, quad=None,
     """Assemble M(omega) with pair-sharded quadrature.
 
     Output is replicated (each device holds the full matrix); the entry
-    all-gather moves only O(npairs) complex values over ICI.
+    all-gather moves only O(npairs) complex values between devices.
     """
     n = grid.npoints
     n_shards = mesh.shape["rows"]
@@ -61,7 +61,7 @@ def sharded_assemble(p, grid: Grid, coeff, omega, mesh: Mesh, quad=None,
             return vals
         local = eigen_mod._chunked(compute, (ea, eb), ea.shape[0],
                                    min(chunk, ea.shape[0]))
-        # all-gather the per-pair kernel values over the rows axis (ICI)
+        # all-gather the per-pair kernel values over the rows axis
         return tuple(
             jax.lax.all_gather(v, "rows", axis=0, tiled=True) for v in local)
 
@@ -306,7 +306,7 @@ def sharded_bdia_matvec(data, offsets, halo: int, mesh: Mesh, xr, xi,
 
 def pic_sharded_step(p, mesh: Mesh, qn_coef, state, dt):
     """One RK3 PIC step with markers sharded over ``rows``; deposition
-    reduces the density with psum over ICI."""
+    reduces the density with psum over the rows axis."""
 
     def shard_fn(s):
         reduce = partial(jax.lax.psum, axis_name="rows")

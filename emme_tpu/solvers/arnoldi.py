@@ -17,9 +17,8 @@ multi-mode use case: 16 shifts sharded across hosts over the mesh's ``scan``
 axis), and each converged estimate can be polished by a couple of
 Newton-trace-secant steps to the reference tolerance.
 
-TPU notes: inner products and basis updates run on (re, im) real planes
-(complex reductions are unsupported); the small Hessenberg eigenproblem is
-solved on host with numpy.
+Inner products and basis updates run on (re, im) real planes; the small
+Hessenberg eigenproblem is solved on host with numpy.
 """
 
 from __future__ import annotations
@@ -185,8 +184,7 @@ def solve_shifts_batched(p, sigmas, m_krylov: int = 24, quad=None,
     cdtype = jnp.complex128 if dtype == jnp.float64 else jnp.complex64
     grid = Grid.create(p.length, p.npoints, dtype=dtype)
     coeff = singularity_coeff_matrix(p.npoints, dtype=dtype)
-    # ship shifts as (re, im) planes -- complex host->device transfers are
-    # unimplemented on the TPU backend
+    # ship shifts as (re, im) planes (the code base's real-plane convention)
     sig_np = np.asarray(sigmas)
     sig_re = jnp.asarray(sig_np.real.astype(jnp.dtype(dtype).name))
     sig_im = jnp.asarray(sig_np.imag.astype(jnp.dtype(dtype).name))

@@ -4,7 +4,7 @@ Numerically equivalent to the reference binary (assembly matches to machine
 roundoff -- see tests/test_native.py) but ~2.5x faster than the reference's
 thread pool on the same cores, and with no external binary dependency.
 Used for f64 golden generation/validation and as the no-accelerator
-fallback; the TPU path lives in ``eigen.py``.
+fallback; the device path lives in ``eigen.py``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """delta-f particle-in-cell initial-value solver along a field line.
 
-TPU-native re-design of the reference PIC path
+Vectorized re-design of the reference PIC path
 (``include/solver_pic.h:16-533``): markers live in structure-of-arrays form,
 the CIC charge deposition becomes ``segment_sum`` scatter-adds, the field
 gather is a vectorized indexed load, and the whole time loop runs under
@@ -33,6 +33,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .. import accel
 from ..ops.bessel import bessel_j0, bessel_j1, bessel_i01_scaled
 
 # Low-storage RK tableau (reference solver_pic.h:466-470).
@@ -131,28 +132,25 @@ def _omega_d_integral(p, eta, v_para):
             * (jnp.sin(eta) * (1.0 + p.shat) - p.shat * eta * jnp.cos(eta)))
 
 
-def _gather_cic_matmul(table, idx, nf, chunk: int = 8192, bf16: bool = False):
+def _gather_cic_matmul(table, idx, nf, bf16: bool = False):
     """Gather rows of ``table`` (nf, c) at marker cells as ONE flat
     TRANSPOSED one-hot matmul: table.T (c, nf) @ one_hot(idx).T (nf, m)
-    -> (c, m).  On the MXU the output M dimension pads to 8 sublanes while
-    N pads to a 128-lane tile, so orienting the c ~ 8 table columns along M
-    (not N) removes a 16x padding waste; measured 0.65 ms vs 2.33 ms for
-    the round-3 chunked-scan form at 1M x 1024 (/tmp micro, v5e).  The
-    one-hot is generated fused into this single consumer (materializing it
-    would be m*nf floats).  ``bf16`` runs the product with bf16 operands
-    (the one-hot is exact in bf16; the table loses ~3 decimal digits --
-    well under the delta-f Monte-Carlo noise, validated statistically in
-    the gamma/omega fit).  Returns (c, m) -- NB transposed relative to the
-    round-3 version; callers index rows.  ``chunk`` kept for API compat."""
+    -> (c, m).  The one-hot is generated fused into this single consumer
+    (materializing it would be m*nf floats).  ``bf16`` runs the product
+    with bf16 operands (the one-hot is exact in bf16; the table loses ~3
+    decimal digits -- under the delta-f Monte-Carlo noise, validated
+    statistically in the gamma/omega fit).  The f32 product runs at
+    HIGHEST precision: a TF32 product would truncate the table the same
+    way without asking.  Returns (c, m); callers index rows."""
     dt = jnp.bfloat16 if bf16 else table.dtype
     oh = jax.nn.one_hot(idx % nf, nf, dtype=dt)            # (m, nf), fused
     # preferred_element_type makes the f32 accumulation EXPLICIT for the
-    # bf16-operand product (the TPU MXU accumulates f32 internally, but the
-    # declared output dtype would otherwise be bf16 -- and CPU/interpret
-    # backends would honor that with a lossy bf16 accumulator over ~1M
-    # markers; ADVICE r4)
+    # bf16-operand product (the declared output dtype would otherwise be
+    # bf16, and the CPU backend would honor that with a lossy bf16
+    # accumulator over ~1M markers)
     return jnp.matmul(table.astype(dt).T, oh.T,
-                      preferred_element_type=table.dtype)
+                      preferred_element_type=table.dtype,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def gather_cic(field, idx, w, nf, cw, method: str | None = None):
@@ -161,14 +159,12 @@ def gather_cic(field, idx, w, nf, cw, method: str | None = None):
     phi = (1-w) f[i] + w f[i+1]; dphi is the CIC blend of the centered
     difference g[c] = (f[c+1] - f[c-1]) / (2 cw) (identical to the
     reference's four-point stencil, solver_pic.h:96-104).  ``method``:
-    'take' (indexed loads; best on CPU), 'matmul' (one-hot MXU gather;
-    best on TPU), 'bf16' (one-hot product with bf16 operands -- ~2x the
-    matmul rate, ~3-digit table truncation under the MC noise), or None
-    to pick by backend.
+    'take' (indexed loads; the default on every platform -- on an H100 it
+    beat the one-hot product, CHANGES.md), 'matmul' (one-hot matrix
+    product), 'bf16' (one-hot product with bf16 operands, ~3-digit table
+    truncation under the MC noise).
     """
-    if method is None:
-        method = "take" if jax.default_backend() == "cpu" else "matmul"
-    if method == "take":
+    if method is None or method == "take":
         fm1 = field[(idx - 1) % nf]
         f0 = field[idx % nf]
         f1 = field[(idx + 1) % nf]
@@ -215,34 +211,34 @@ def put_velocity(p, s: PICState, gather_method: str | None = None):
 
 
 def _deposit_segment(den, idx, w, nf):
-    """CIC scatter-add via segment_sum (efficient on CPU)."""
+    """CIC scatter-add via segment_sum."""
     i0 = idx % nf
     i1 = (idx + 1) % nf
     return (jax.ops.segment_sum(den * (1.0 - w), i0, num_segments=nf)
             + jax.ops.segment_sum(den * w, i1, num_segments=nf))
 
 
-def _deposit_matmul(den, idx, w, nf, chunk: int = 8192, bf16: bool = False):
-    """CIC deposition as ONE flat transposed one-hot matmul (TPU scatters
-    are ~10x slower; cf. the SURVEY plan 'sort-by-cell + segment_sum, or
-    one-hot matmul deposition on the MXU'):
+def _deposit_matmul(den, idx, w, nf, bf16: bool = False):
+    """CIC deposition as ONE flat transposed one-hot matmul:
 
         y = [re*wl, im*wl, re*wr, im*wr].T (4, m) @ one_hot(idx) (m, nf)
 
-    The 4 value columns ride the MXU's M dimension (pads to 8 sublanes)
-    and the contraction runs over all markers at once -- measured 1.05 ms
-    vs 2.11 ms for the round-3 chunked-scan form at 1M x 1024 (v5e).  The
-    right-CIC-node part lands on idx and is rolled by one cell, exactly
-    the periodic (idx + 1) % nf target.  ``chunk`` kept for API compat."""
+    The contraction runs over all markers at once.  The right-CIC-node
+    part lands on idx and is rolled by one cell, exactly the periodic
+    (idx + 1) % nf target.
+
+    The f32 product runs at HIGHEST precision: at DEFAULT a GPU may run it
+    in TF32 and keep ~3 decimal digits of each marker's charge, a
+    departure from the configured f32 that the caller never asked for."""
     wl = (1.0 - w)
     rdt = jnp.real(den).dtype
     vals = jnp.stack([jnp.real(den) * wl, jnp.imag(den) * wl,
                       jnp.real(den) * w, jnp.imag(den) * w], axis=0)
     dt = jnp.bfloat16 if bf16 else vals.dtype
     oh = jax.nn.one_hot(idx % nf, nf, dtype=dt)            # (m, nf), fused
-    # explicit f32 accumulation for the bf16 operands (see gather; ADVICE r4)
-    y = jnp.matmul(vals.astype(dt), oh,
-                   preferred_element_type=rdt)             # (4, nf), f32 acc
+    # explicit f32 accumulation for the bf16 operands (see gather)
+    y = jnp.matmul(vals.astype(dt), oh, preferred_element_type=rdt,
+                   precision=jax.lax.Precision.HIGHEST)    # (4, nf)
     left = y[0] + 1j * y[1]
     right = y[2] + 1j * y[3]
     return left + jnp.roll(right, 1)
@@ -250,10 +246,10 @@ def _deposit_matmul(den, idx, w, nf, chunk: int = 8192, bf16: bool = False):
 
 def deposit(den, idx, w, nf, method: str | None = None):
     """CIC charge deposition den -> grid.  ``method``: 'segment' (scatter
-    adds; best on CPU), 'matmul' (one-hot MXU contraction; best on TPU), or
-    None to pick by backend."""
+    adds), 'matmul' / 'bf16' (one-hot contraction), or None for the
+    platform default (``accel.pic_deposit``)."""
     if method is None:
-        method = "segment" if jax.default_backend() == "cpu" else "matmul"
+        method = accel.pic_deposit(accel.current())
     if method == "segment":
         return _deposit_segment(den, idx, w, nf)
     return _deposit_matmul(den, idx, w, nf, bf16=(method == "bf16"))
@@ -347,14 +343,12 @@ def field_stats(field):
 
 
 # ---------------------------------------------------------------------------
-# Sorted-window marker path: the one-hot CIC gather/deposit matmuls dominate
-# the PIC step on TPU (~92% measured at the canonical case) because their
-# useful minor dimension (4-8 columns) pads to the 128-wide MXU tile while
-# the contraction runs over ALL nf cells.  Sorting markers by eta (a cheap
-# 6.6 ms multi-operand lax.sort at 1M markers) makes each marker chunk
-# CELL-LOCAL, so the one-hots only span a W-cell window around the chunk:
-# nf/W times fewer MXU flops, exactly the same arithmetic.  Markers drift
-# between re-sorts; the window slack absorbs a statically-bounded drift
+# Sorted-window marker path: the full-width one-hot CIC gather/deposit
+# matmuls contract over ALL nf cells for a useful minor dimension of 4-8
+# columns.  Sorting markers by eta (one multi-operand lax.sort) makes each
+# marker chunk CELL-LOCAL, so the one-hots only span a W-cell window around
+# the chunk: nf/W times fewer flops, exactly the same arithmetic.  Markers
+# drift between re-sorts; the window slack absorbs a statically-bounded drift
 # (bound from max|v_para|, which never changes), eta runs UNWRAPPED inside
 # a sorted block (guard cells handle periodicity exactly), and any marker
 # that still escapes its window is clamped AND counted (the returned
@@ -418,10 +412,9 @@ def _field_table_ext(field, G: int):
 def _gather_windowed(table_ext, eta, w0, W: int, G: int, cw, L):
     """CIC gather with per-chunk W-cell one-hots (vs nf-cell full-width),
     BATCHED over chunks: one gathered table stack (n_chunks, W, 8) and one
-    batched einsum -- the round-3 form ran the chunks through a sequential
-    ``lax.scan`` of tiny matmuls and LOST to the full-width path (7.6 s vs
-    2.7 s at the canonical case); the batched form wins because the MXU
-    work drops by nf/W while staying one fat dispatch.
+    batched einsum -- a sequential ``lax.scan`` of tiny per-chunk matmuls
+    lost to the full-width path; the batched form cuts the work by nf/W
+    while staying one fat dispatch.
     Returns (phi, dphi, violations)."""
     n_chunks = w0.shape[0]
     C = eta.shape[0] // n_chunks
@@ -453,8 +446,7 @@ def _deposit_windowed(den, eta, w0, W: int, G: int, nf: int, cw, L,
     scatter: window bases are pre-quantized to multiples of ``quant``
     (see ``_window_bases``), so chunks group into nfe/quant alignment
     buckets via one tiny one-hot matmul, and the buckets overlap-add onto
-    the grid with STATIC slices (TPU scatters at this shape measured
-    ~1.5 ms; this fold is ~0).  Returns (density (nf,) complex,
+    the grid with STATIC slices.  Returns (density (nf,) complex,
     violations)."""
     n_chunks = w0.shape[0]
     C = den.shape[0] // n_chunks
@@ -625,8 +617,8 @@ def run_sorted(p, marker_per_cell: int, n_steps: int, dt, key=None,
 
     @jax.jit
     def full(s):
-        # inside the jit: eager complex ops (the Bessel in the
-        # quasi-neutrality table) are unimplemented on the TPU backend
+        # inside the jit: one compiled program for the quasi-neutrality
+        # table too
         qn = quasi_neutrality_coef(p, dtype=dtype)
 
         def outer(s, _):
@@ -677,9 +669,9 @@ _PREP_JIT_CACHE: dict = {}
 
 
 def _prepare_jit(marker_per_cell: int, dtype):
-    """Cached jitted (init_state, quasi_neutrality_coef) prologue: the eager
-    composition breaks on the TPU backend (eager complex ops are
-    unimplemented) and would recompile per scan point otherwise."""
+    """Cached jitted (init_state, quasi_neutrality_coef) prologue: compiled
+    once per (markers, dtype) instead of dispatched eagerly at every scan
+    point."""
     key = (marker_per_cell, jnp.dtype(dtype).name)
     if key not in _PREP_JIT_CACHE:
         _PREP_JIT_CACHE[key] = jax.jit(lambda p, k: (
@@ -695,8 +687,7 @@ def run_jitted(p, marker_per_cell: int, n_steps: int, dt, key,
                record_fields: bool = False, gather_method: str | None = None,
                deposit_method: str | None = None):
     """``run`` through a module-cached jit wrapper -- the driver-facing
-    entry: runnable on TPU (no eager ops) and compiled once per
-    (shape, options) across scan points."""
+    entry: compiled once per (shape, options) across scan points."""
     k = (marker_per_cell, n_steps, record_fields, gather_method,
          deposit_method)
     if k not in _RUN_JIT_CACHE:
@@ -717,7 +708,7 @@ def run_streaming(p, marker_per_cell: int, n_steps: int, dt, stream_path,
     main.cpp:105-110, so a killed run keeps its field history; the buffered
     ``run`` loses everything).
 
-    TPU-shaped streaming: the time loop runs as jitted ``chunk_steps``-long
+    Streaming: the time loop runs as jitted ``chunk_steps``-long
     lax.scan segments; after each segment the fields are fetched and
     APPENDED to ``stream_path`` (complex128 raw, same layout as the
     buffered dump) and flushed.  At the default chunk the extra dispatches

@@ -3,7 +3,7 @@
 ``Matrix.h:38-42``, ``solver.h:418-425``, plus ASan in Debug builds,
 ``CMakeLists.txt:7``).
 
-On TPU the container bounds checks are structural non-issues (shapes are
+On the device the container bounds checks are structural non-issues (shapes are
 static and XLA-verified at trace time), so the useful debug surface is:
 
   * ``jax_debug_nans``: every jitted computation re-runs eagerly when an

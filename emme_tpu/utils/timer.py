@@ -1,7 +1,7 @@
 """Named-section wall-clock timer (reference include/Timer.h:10-35,
 src/Timer.cpp:8-71): start/pause/pause_and_start accumulation with an ASCII
 table report.  Optionally brackets sections with jax.profiler trace
-annotations for TPU timeline inspection."""
+annotations for device timeline inspection."""
 
 from __future__ import annotations
 
@@ -89,7 +89,7 @@ class section:
     """Context manager: ``with section("Iteration"): ...``
 
     Besides the wall-clock accumulation it emits a ``jax.profiler``
-    TraceAnnotation so the section shows up on the TPU timeline when a
+    TraceAnnotation so the section shows up on the device timeline when a
     profiler trace is being captured (``start_trace``/``stop_trace``)."""
 
     def __init__(self, name: str):

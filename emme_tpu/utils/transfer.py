@@ -1,8 +1,7 @@
 """Device->host transfer helpers.
 
-The TPU backend cannot transfer complex arrays (complex dtypes exist only for
-elementwise compute), so complex results are fetched as (re, im) real planes
-and recombined on the host."""
+Complex results are fetched as (re, im) real planes and recombined on the
+host (the code base's real-plane convention; see ROADMAP queue 3)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -10,16 +9,13 @@ import jax.numpy as jnp
 
 @jax.jit
 def _split(x):
-    # must run under jit: EAGER complex ops (even real/imag) are
-    # unimplemented on the TPU backend
+    # one jitted split instead of two eager dispatches
     return jnp.real(x), jnp.imag(x)
 
 
 def fetch(x):
     """numpy copy of a jax array; complex arrays go through real planes.
-    Host (numpy) inputs pass through without touching the device -- round-
-    tripping them via jnp.asarray would be an eager complex transfer, which
-    the TPU backend cannot do."""
+    Host (numpy) inputs pass through without touching the device."""
     if not isinstance(x, jax.Array):
         return np.asarray(x)
     if jnp.issubdtype(x.dtype, jnp.complexfloating):

@@ -1,6 +1,6 @@
 // emme_native: multithreaded adaptive-quadrature assembly engine (C ABI).
 //
-// The CPU-exact counterpart of the TPU fixed-panel assembly: evaluates the
+// The CPU-exact counterpart of the device fixed-panel assembly: evaluates the
 // gyrokinetic propagator kernel kappa_f_tau (see emme_tpu/ops/kernels.py and
 // reference src/Parameters.cpp:113-209) with *adaptive* Gauss-Kronrod
 // quadrature in f64, and fills the dense complex-symmetric operator in

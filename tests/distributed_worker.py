@@ -2,7 +2,7 @@
 (tests/test_distributed.py).  Each of the 2 processes owns 4 virtual CPU
 devices; the global 8-device ``rows`` mesh spans both processes, so the
 SPIKE all_gathers/psums exercise REAL cross-process collectives (the DCN
-path of SURVEY 5.8) rather than intra-process ICI emulation.
+path of SURVEY 5.8) rather than intra-process device emulation.
 
 Usage: python distributed_worker.py <process_id> <num_processes> <port> <out>
 """

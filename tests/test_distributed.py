@@ -34,6 +34,7 @@ def test_two_process_spike_matches_single_process(tmp_path):
     out = tmp_path / "proc0.json"
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # worker sets its own 4-device flag
+    env["JAX_PLATFORMS"] = "cpu"  # the workers never open a card
     env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
     procs = [
         subprocess.Popen(

@@ -81,8 +81,8 @@ def test_eigen_solve_stel32(goldens_dir, stellarator_cfg, golden_eigenvalues):
 def test_eigen_solve_host64_polish_tok32(goldens_dir, tokamak_cfg,
                                          golden_eigenvalues):
     """The hybrid path (device assembly + host complex128 trace-secant +
-    inverse-iteration null vector) reaches the same fixed point.  On TPU
-    this is how the reference 1e-6 tolerance is met without f64 hardware."""
+    inverse-iteration null vector) reaches the same fixed point: the way an
+    f32 run meets the reference 1e-6 tolerance."""
     cfg = dict(tokamak_cfg, npoints=32)
     p = from_config(cfg)
     om, vec, nsteps, _ = eigen.solve(p, -0.8 + 0.25j, tol=1e-6, host64=True)

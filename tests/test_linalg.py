@@ -1,4 +1,4 @@
-"""Complex linear algebra via real 2n embedding (the TPU path) vs direct
+"""Complex linear algebra via real 2n embedding vs direct
 complex ops."""
 import numpy as np
 import jax.numpy as jnp

@@ -77,7 +77,7 @@ def test_deposition_charge_conservation(pic_params):
 
 
 def test_deposit_matmul_matches_segment(pic_params):
-    """The MXU one-hot deposition (TPU default) is algebraically the same
+    """The one-hot matmul deposition (the GPU default) is algebraically the same
     scatter as segment_sum (CPU default), including the periodic (idx+1)
     wrap and chunk padding."""
     p = pic_params
@@ -93,7 +93,7 @@ def test_deposit_matmul_matches_segment(pic_params):
 
 
 def test_gather_matmul_matches_take(pic_params):
-    """The MXU one-hot gather (TPU default) reproduces the indexed-load CIC
+    """The one-hot matmul gather reproduces the indexed-load CIC
     gather, including the periodic stencil wrap."""
     p = pic_params
     nf = int(p.npoints)

@@ -67,7 +67,7 @@ def test_pic_sharded_deposition_matches_single(tokamak_cfg):
 
 
 def test_pic_sharded_matmul_deposit_under_shard_map(tokamak_cfg):
-    """The MXU one-hot deposition (the TPU default) must also work inside
+    """The one-hot matmul deposition (the GPU default) must also work inside
     shard_map with a psum reduction (regression: a zeros-initialized scan
     carry had the wrong varying-manual-axes type)."""
     from functools import partial

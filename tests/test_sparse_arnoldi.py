@@ -1,4 +1,4 @@
-"""BSR operator + Pallas SpMV (interpret mode on CPU) and shift-invert
+"""BDIA operator SpMV (single device and row-sharded) and shift-invert
 Arnoldi."""
 import numpy as np
 import jax
@@ -18,39 +18,6 @@ def banded_matrix():
     i = np.arange(n)
     M *= np.exp(-np.abs(i[:, None] - i[None, :]) / 40.0)
     return M
-
-
-def _dense_from_op(op, M):
-    bs = op.block
-    Md = np.zeros_like(M)
-    ro, ci = np.asarray(op.row_of), np.asarray(op.col_idx)
-    for k in range(op.nnzb):
-        Md[ro[k]*bs:(ro[k]+1)*bs, ci[k]*bs:(ci[k]+1)*bs] = \
-            M[ro[k]*bs:(ro[k]+1)*bs, ci[k]*bs:(ci[k]+1)*bs]
-    return Md
-
-
-def test_bsr_threshold_drops_far_blocks(banded_matrix):
-    op = sparse.bsr_from_dense(banded_matrix, block=128, threshold=1e-2)
-    assert op.nnzb < (512 // 128) ** 2
-    # diagonal blocks always kept
-    ro, ci = np.asarray(op.row_of), np.asarray(op.col_idx)
-    assert set(zip(ro[ro == ci], ci[ro == ci])) == {(i, i) for i in range(4)}
-
-
-@pytest.mark.parametrize("nrhs", [None, 4])
-def test_bsr_matvec_pallas_matches_dense(banded_matrix, nrhs):
-    M = banded_matrix
-    n = M.shape[0]
-    op = sparse.bsr_from_dense(M, block=128, threshold=1e-3)
-    Md = _dense_from_op(op, M)
-    rng = np.random.default_rng(1)
-    shape = (n,) if nrhs is None else (n, nrhs)
-    x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
-    yr, yi = sparse.bsr_matvec_pallas(op, jnp.asarray(x.real),
-                                      jnp.asarray(x.imag))
-    y = np.asarray(yr) + 1j * np.asarray(yi)
-    assert np.abs(y - Md @ x).max() < 1e-10
 
 
 def test_bdia_offsets_respect_threshold(banded_matrix):
@@ -113,17 +80,6 @@ def test_sharded_bdia_matvec_matches_dense(banded_matrix):
                                         jnp.asarray(x.imag))
     y_ref = np.asarray(yr_ref) + 1j * np.asarray(yi_ref)
     assert np.abs(y - y_ref).max() < 1e-10
-
-
-def test_bsr_ref_matches_pallas(banded_matrix):
-    op = sparse.bsr_from_dense(banded_matrix, block=128, threshold=1e-3)
-    rng = np.random.default_rng(2)
-    x = rng.normal(size=512)
-    xi = rng.normal(size=512)
-    r1 = sparse.bsr_matvec_ref(op, jnp.asarray(x), jnp.asarray(xi))
-    r2 = sparse.bsr_matvec_pallas(op, jnp.asarray(x), jnp.asarray(xi))
-    for a, b in zip(r1, r2):
-        assert np.abs(np.asarray(a) - np.asarray(b)).max() < 1e-10
 
 
 class TestArnoldi:

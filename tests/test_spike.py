@@ -204,6 +204,19 @@ def test_driver_mesh_pic(tmp_path, tokamak_cfg):
     assert np.isfinite(ev).all()
 
 
+@pytest.mark.parametrize("rows,want", [(None, [0]), (4, [0, 1, 2, 3])])
+def test_driver_reports_device_set(tmp_path, tokamak_cfg, rows, want):
+    """The result names the devices that held the solve's arrays: one for
+    a meshless run, every device of the rows axis for a mesh run."""
+    from emme_tpu import driver
+    cfg = dict(tokamak_cfg, npoints=32, method="PIC", marker_per_cell=16,
+               step_number=8, time_step=0.25, initial_guess=[-0.8, 0.25])
+    if rows:
+        cfg["mesh"] = {"rows": rows}
+    out = driver.run(cfg, output_dir=tmp_path, verbose=False)
+    assert out["result"]["(None)"]["scan_result"][0]["devices"] == want
+
+
 def test_sharded_nullspace(tok_op):
     p, grid, cband, op = tok_op
     mesh = _mesh(4)
